@@ -3,7 +3,7 @@
 ``708-786``, confusion optimizer ``810-817``).
 
 Written per-shard: the train step runs these inside ``shard_map`` over the
-data mesh axis and psums gradients — the TPU-native replacement for the
+data mesh axis and psums gradients — the SPMD replacement for the
 reference's per-GPU tower loop + ``/len(DEVICES)`` averaging.
 """
 

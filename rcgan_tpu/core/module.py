@@ -1,11 +1,11 @@
-"""Functional parameter/state container for TPU-native model code.
+"""Functional parameter/state container for jit-compiled model code.
 
 The reference (tkkiran/Robust-Conditional-GAN) relies on TF1 variable scopes
 with hidden side effects: spectral-norm ``u`` vectors updated through control
 dependencies (``mnist/sn.py:44-62``), batch-norm moving statistics updated via
 ``updates_collections=None`` (``mnist/ops.py:30-44``), and a trainable
-confusion matrix (``mnist/model.py:102-106``).  On TPU all of that state must
-be explicit so a whole G/D/C training cycle compiles to one XLA program.
+confusion matrix (``mnist/model.py:102-106``).  Here all of that state is
+explicit so a whole G/D/C training cycle compiles to one XLA program.
 
 ``Ctx`` is that explicit container.  Model code is written once as plain
 functions ``f(ctx, *inputs)``; running them with ``ctx.init=True`` *creates*
@@ -45,7 +45,7 @@ class Ctx:
         ``NO_OPS`` collection (``cifar10/gan_resnet.py:723,729``) but updates
         it on every MNIST call (``mnist/ops.py:60``).
       compute_dtype: activations/weights are cast to this dtype at matmul/conv
-        boundaries (bfloat16 on TPU for MXU throughput); params stay float32.
+        boundaries (bfloat16 for tensor-core throughput); params stay float32.
     """
 
     def __init__(

@@ -4,8 +4,8 @@ The synthetic stand-in datasets (``cifar10.synthetic_cifar``,
 ``mnist.synthetic_digits``) are pure functions of their arguments, but
 rendering is host-side numpy work that runs at the start of EVERY
 experiment: ~33 s for 50k 32px images, ~17 s for the 70k digit set, and
-~3.4 min for 20k 128px images — all inside the chip-reservation window.
-Sweep drivers re-render the identical arrays once per cell.
+~3.4 min for 20k 128px images.  Sweep drivers re-render the identical
+arrays once per cell.
 
 This module caches the rendered arrays as uncompressed ``.npz`` files
 (bit-exact uint8/int64 round-trip, ~1 s to load) keyed by:
@@ -17,7 +17,7 @@ This module caches the rendered arrays as uncompressed ``.npz`` files
   invalidates stale entries without manual version bumps.
 
 Location: ``$RCGAN_SYNTH_CACHE`` (set to ``0``/``off``/empty to disable),
-default ``~/.cache/rcgan_tpu/synth``.  Writes are atomic (temp file +
+default ``<repo>/.synth_cache`` (git-ignored).  Writes are atomic (temp file +
 ``os.replace``), so concurrent runs at worst render twice.
 """
 
@@ -36,7 +36,8 @@ _DISABLED = ("", "0", "off", "none")
 def cache_dir() -> str | None:
     d = os.environ.get("RCGAN_SYNTH_CACHE")
     if d is None:
-        d = os.path.join(os.path.expanduser("~"), ".cache", "rcgan_tpu", "synth")
+        d = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), ".synth_cache")
     return None if d.strip().lower() in _DISABLED else d
 
 

@@ -20,7 +20,7 @@ is a from-scratch JAX implementation of the Inception-v3 inference graph
   TF-slim vs torchvision weight ports differ by a few percent).
 
 Everything is pure-functional inference: conv + frozen batch-norm + relu,
-jitted end to end; the MXU sees one [B, 299, 299, 3] stream.
+jitted end to end over one [B, 299, 299, 3] stream.
 """
 
 from __future__ import annotations

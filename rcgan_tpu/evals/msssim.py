@@ -1,6 +1,6 @@
 """MS-SSIM image similarity (reference CLI: ``cifar10/common/msssim.py``,
 Wang et al. multi-scale SSIM with the standard 5-level weights), implemented
-with XLA convs so it jit-compiles on TPU.
+with XLA convs so it jit-compiles on any backend.
 """
 
 from __future__ import annotations

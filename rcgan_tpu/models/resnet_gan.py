@@ -60,8 +60,7 @@ def nonlinearity(x, kind: str = "relu", leakiness: float = 0.2):
 
 def normalize(ctx: Ctx, cfg: ResnetGANConfig, name: str, x, labels=None):
     """Routes to cond-BN / BN / layer-norm / identity by scope name and
-    config, reproducing ``gan_resnet.py:207-228``.  On TPU the conditional
-    batch-norm runs through the fused Pallas kernel."""
+    config, reproducing ``gan_resnet.py:207-228``."""
     if not cfg.conditional:
         labels = None
     if cfg.conditional and cfg.acgan and ("D." in name):
@@ -70,22 +69,6 @@ def normalize(ctx: Ctx, cfg: ResnetGANConfig, name: str, x, labels=None):
         return layer_norm(ctx, x, name)
     if ("G." in name) and cfg.normalization_g:
         if labels is not None:
-            from rcgan_tpu.ops.pallas import kernel_enabled
-
-            # default OFF by measurement: the tiled Pallas cond-BN is
-            # correct for every flagship shape, but the XLA path fuses the
-            # normalize into the neighboring relu/conv (29.7-30.0 vs 26.8
-            # cycles/s on v5e, bench.py A/B via RCGAN_PALLAS_NORM) — there
-            # is no HBM round trip for the kernel to save here.  Set
-            # RCGAN_PALLAS_NORM=1 to route through the kernel.
-            if kernel_enabled("norm", default=False):
-                from rcgan_tpu.core import initializers as inits
-                from rcgan_tpu.ops.pallas.norm_kernel import cond_batchnorm_bhwc
-
-                c = x.shape[-1]
-                offset_m = ctx.param(name, "offset", (cfg.vocab_size, c), inits.zeros)
-                scale_m = ctx.param(name, "scale", (cfg.vocab_size, c), inits.ones)
-                return cond_batchnorm_bhwc(x, labels, scale_m, offset_m)
             return cond_batchnorm(ctx, x, labels, cfg.vocab_size, name)
         return batch_norm(ctx, x, name, zero_debias=True)
     return x
@@ -234,17 +217,11 @@ def projection_logits(features: jax.Array, wgan: jax.Array, embedding_y: jax.Arr
 
 def all_label_logits(ctx: Ctx, cfg: ResnetGANConfig, features: jax.Array, wgan: jax.Array):
     """Logits against *every* label's embedding: [B, vocab]
-    (``gan_resnet.py:654-660``) — the rcgan-u expected-loss path.
-    Uses the fused Pallas projection kernel on TPU."""
+    (``gan_resnet.py:654-660``) — the rcgan-u expected-loss path."""
     all_labels = jnp.arange(cfg.vocab_size)
     emb = discriminator_projection(ctx, cfg, all_labels)  # [vocab, dim_d]
-    from rcgan_tpu.ops.pallas import kernel_enabled
-
-    if kernel_enabled("proj"):
-        from rcgan_tpu.ops.pallas.projection_kernel import all_label_projection_logits
-
-        return all_label_projection_logits(features, emb, wgan[:, None])
-    return wgan[:, None] + features @ emb.T
+    with jax.named_scope("all_label_logits"):
+        return wgan[:, None] + features @ emb.T
 
 
 def perm_classifier(ctx: Ctx, cfg: ResnetGANConfig, x: jax.Array):

@@ -2,9 +2,9 @@
 //
 // The reference's input pipeline is pure-Python NumPy: O(dataset) label
 // corruption loops (mnist/model.py:821-832, cifar10/common/data/cifar10.py:
-// 35-38) and per-batch Python slicing in the hot loop.  On TPU the host CPU
-// must keep N_CRITIC micro-batches/iteration ahead of a ~30 cycles/s device,
-// so the host path is native: label corruption, epoch shuffling, and strided
+// 35-38) and per-batch Python slicing in the hot loop.  The host CPU must
+// keep N_CRITIC micro-batches/iteration ahead of the device, so the host
+// path is native: label corruption, epoch shuffling, and strided
 // batch gathers are implemented here and exposed through a C ABI consumed
 // via ctypes (rcgan_tpu/native/__init__.py).
 //

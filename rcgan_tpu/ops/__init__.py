@@ -1,7 +1,7 @@
-"""TPU-native op library: parameterized layer factories over a :class:`Ctx`.
+"""Op library: parameterized layer factories over a :class:`Ctx`.
 
 Replaces the reference's L2 ops layer (``mnist/ops.py``, ``mnist/sn.py``,
-``cifar10/common/ops/*``) with XLA/Pallas-lowered equivalents.
+``cifar10/common/ops/*``) with XLA-lowered equivalents.
 """
 
 from rcgan_tpu.ops.conv import (

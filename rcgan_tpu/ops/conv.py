@@ -1,4 +1,4 @@
-"""Convolution ops (NHWC), lowered to XLA ``conv_general_dilated`` → MXU.
+"""Convolution ops (NHWC), lowered to XLA ``conv_general_dilated``.
 
 Variants mirror the two reference stacks:
   * :func:`conv2d` / :func:`deconv2d` — DCGAN 5x5/s2 conv and
@@ -26,23 +26,14 @@ from rcgan_tpu.ops.sn import spectral_normed_weight
 _DIMS = ("NHWC", "HWIO", "NHWC")
 
 
+@jax.named_scope("conv")
 def _conv(x, w, stride, padding, compute_dtype, feature_group_count=1):
-    # Inputs cast to the compute dtype; the TPU MXU accumulates bf16
-    # contractions in float32 internally, so no preferred_element_type is
-    # needed (and its VJP rejects mixed f32 cotangents in this JAX version).
-    x = x.astype(compute_dtype)
-    w = w.astype(compute_dtype)
-    if feature_group_count == 1:
-        # measured A/B routing hook for the dominant 3x3/s1/SAME class
-        # (ops/pallas/conv_kernel.py; returns None when routed off)
-        from rcgan_tpu.ops.pallas.conv_kernel import maybe_conv3x3
-
-        out = maybe_conv3x3(x, w, stride, padding)
-        if out is not None:
-            return out
+    # Inputs cast to the compute dtype; cuDNN accumulates bf16 convolutions
+    # in float32, so no preferred_element_type is needed (and its VJP
+    # rejects mixed f32 cotangents in this JAX version).
     return jax.lax.conv_general_dilated(
-        x,
-        w,
+        x.astype(compute_dtype),
+        w.astype(compute_dtype),
         window_strides=(stride, stride),
         padding=padding,
         dimension_numbers=_DIMS,
@@ -83,7 +74,7 @@ def deconv2d(
 
     The filter is stored in TF layout ``[k, k, cout, cin]``
     (``mnist/ops.py:74``) and applied as the transpose (gradient) of a
-    forward conv, which XLA lowers to an input-dilated conv on the MXU.
+    forward conv, which XLA lowers to an input-dilated conv.
     """
     cin = x.shape[-1]
     w = ctx.param(name, "w", (k, k, output_dim, cin), inits.normal(stddev))

@@ -7,7 +7,7 @@ Two variants, matching the two reference stacks:
     norm / weight norm and >2D reshape handling
     (``cifar10/common/ops/linear.py:38-182``).
 
-Matmuls run on the MXU in ``ctx.compute_dtype`` with float32 accumulation.
+Matmuls run in ``ctx.compute_dtype`` with float32 accumulation.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from rcgan_tpu.ops.sn import spectral_normed_weight
 
 
 def _matmul(x: jax.Array, w: jax.Array, compute_dtype) -> jax.Array:
-    # bf16 x bf16 dots accumulate in f32 on the MXU; output stays in the
+    # bf16 x bf16 dots accumulate in f32 on the tensor cores; output stays in the
     # compute dtype and is cast to f32 at loss/norm boundaries.
     x = x.astype(compute_dtype)
     w = w.astype(compute_dtype)

@@ -82,6 +82,7 @@ def batch_norm(
     return out.astype(x.dtype)
 
 
+@jax.named_scope("cond_bn")
 def cond_batchnorm(
     ctx: Ctx,
     x: jax.Array,

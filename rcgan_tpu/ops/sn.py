@@ -8,12 +8,12 @@ dependencies / collections; here it is explicit state on the :class:`Ctx`,
 gated by ``ctx.update_sn`` (the ``NO_OPS`` convention used during CIFAR
 generator steps, ``cifar10/gan_resnet.py:723,729``).
 
-TPU notes: ``sigma`` is computed in float32 regardless of compute dtype.  On
-TPU the whole call (reshape → matvecs → normalize → ``W/sigma``) runs as ONE
-Pallas kernel (``rcgan_tpu.ops.pallas.sn_kernel``) with ``W`` resident in
-VMEM and a flow-through-power-iteration VJP; weights past the VMEM budget
-(none in the flagship configs) and ``num_iters != 1`` take the XLA-fused
-jnp path below — identical math.
+``sigma`` is computed in float32 regardless of compute dtype, and its
+matrix-vector products ask for ``HIGHEST`` precision: ``sigma`` scales every
+discriminator weight, and a TF32 product would move it by ~1e-3.  The
+products are two matvecs per call, far too small for the precision to cost
+measurable time.  Gradients flow through the power iteration (reference
+semantics; no stop-gradient on ``u``/``v``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,11 @@ def _l2normalize(v: jax.Array, eps: float = 1e-12) -> jax.Array:
     return v / (jnp.sum(v**2) ** 0.5 + eps)
 
 
+def _matmul(a: jax.Array, b: jax.Array) -> jax.Array:
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
+@jax.named_scope("sn")
 def spectral_normed_weight(
     ctx: Ctx,
     layer: str,
@@ -51,22 +56,10 @@ def spectral_normed_weight(
     u = ctx.stat(layer, "u", (1, cout), inits.truncated_normal(1.0))
     u = u.astype(jnp.float32)
 
-    from rcgan_tpu.ops.pallas import kernel_enabled
-    from rcgan_tpu.ops.pallas.sn_kernel import fits_fused, sn_fused
-
-    if num_iters == 1 and kernel_enabled("sn") and fits_fused(*w_mat.shape):
-        w_bar, u_f, sigma = sn_fused(w_mat, u)
-        if ctx.update_sn:
-            ctx.put_stat(layer, "u", jax.lax.stop_gradient(u_f))
-        w_bar = w_bar.reshape(w_shape).astype(w.dtype)
-        if with_sigma:
-            return w_bar, sigma
-        return w_bar
-
     def body(_, carry):
         u_i, _v = carry
-        v_n = _l2normalize(u_i @ w_mat.T)
-        u_n = _l2normalize(v_n @ w_mat)
+        v_n = _l2normalize(_matmul(u_i, w_mat.T))
+        u_n = _l2normalize(_matmul(v_n, w_mat))
         return u_n, v_n
 
     if num_iters == 1:  # unrolled fast path
@@ -76,7 +69,7 @@ def spectral_normed_weight(
             0, num_iters, body, (u, jnp.zeros((1, w_mat.shape[0]), jnp.float32))
         )
 
-    sigma = (v_f @ w_mat @ u_f.T)[0, 0]
+    sigma = _matmul(_matmul(v_f, w_mat), u_f.T)[0, 0]
     w_bar = (w_mat / sigma).reshape(w_shape)
 
     if ctx.update_sn:

@@ -11,7 +11,7 @@ parallelism, which are sharded on ``model``:
   * ``D.Output`` / projection embeddings — row-parallel.
 
 The scaling-book recipe: pick a mesh, annotate shardings, let XLA insert
-collectives over ICI.
+collectives over the device interconnect (NVLink between H100s).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Device-mesh + sharding helpers — the TPU-native replacement for the
+"""Device-mesh + sharding helpers — the SPMD replacement for the
 reference's 2-GPU in-graph tower replication (SURVEY §2.4).
 
 Scaling axes:
-  * ``data`` — batch sharding over ICI; gradients ``psum`` inside shard_map.
+  * ``data`` — batch sharding; gradients ``psum`` inside shard_map.
   * ``model`` — optional tensor-parallel axis for the generator's wide input
     projection and the discriminator's output head (the only layers big
     enough to benefit at CIFAR scale); exposed for the multi-chip dry run.
@@ -61,7 +61,7 @@ def maybe_initialize_distributed():
     """Multi-host bootstrap (no-op single-process): JAX distributed init,
     after which the same pjit/shard_map program spans all hosts.
 
-    Cluster topology comes from the launcher: TPU pods / Slurm / OMPI are
+    Cluster topology comes from the launcher: Slurm / OMPI are
     auto-detected by JAX; manual launches (and the 2-process CPU harness
     test) set ``JAX_COORDINATOR_ADDRESS`` + ``JAX_NUM_PROCESSES`` +
     ``JAX_PROCESS_ID``."""

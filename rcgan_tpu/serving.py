@@ -83,7 +83,7 @@ class Sampler:
                         buckets: Sequence[int] = DEFAULT_BUCKETS, **overrides):
         """Build the restore template ALGORITHM-AWARE: an RCGAN-U
         checkpoint carries confusion-matrix (and perm-classifier) state
-        that a plain-rcgan template would reject at orbax restore time.
+        that a plain-rcgan template would not have at restore time.
 
         Config resolution, lowest to highest precedence: dataclass
         defaults < the run's archived ``config.json`` (auto-detected next

@@ -3,7 +3,7 @@
 The reference's recovery story is "restart the script and auto-resume from
 the latest checkpoint" (``cifar10/gan_resnet.py:910-914``; SURVEY §5.3).
 That auto-resume is kept (Checkpointer.restore), and extended with the piece
-production TPU jobs actually need: a preemption hook that checkpoints on
+production accelerator jobs actually need: a preemption hook that checkpoints on
 SIGTERM so no work is lost when the scheduler reclaims the slice, plus a
 deterministic fault-injection knob for testing the resume path.
 """

@@ -2,7 +2,7 @@
 
 The reference vendors PGGAN G/D blocks with fade-in but never trains them
 (``cifar10/common/resnet_block.py:192-349`` — dead library surface).  This
-trainer supplies the missing schedule, TPU-first:
+trainer supplies the missing schedule, compile-once:
 
 - **All stages' parameters are materialized up front** (one init pass per
   (stage, trans) phase): the parameter tree is static across the whole

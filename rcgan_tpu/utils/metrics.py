@@ -3,7 +3,8 @@
 Covers the capability surface of the reference's ``lib.plot`` logging
 channel (``cifar10/common/plot.py``): record named scalars against an
 iteration counter, periodically emit a one-line window summary to the log,
-render one curve image per metric, and persist the full history to disk.
+and persist the full history to disk.  Curves are drawn from that history
+(``log.pkl`` / ``metrics.jsonl``) by offline tooling, not during training.
 
 Design (original, columnar): each metric is an append-only pair of arrays
 ``(steps, values)``; a per-metric watermark tracks how much of the series
@@ -50,7 +51,7 @@ class MetricLogger:
 
     ``plot`` records at the current step, ``plot_at`` at an explicit step
     (device-buffered metrics arrive in blocks), ``tick`` advances the step
-    counter, and ``dir_flush`` summarizes + renders + persists.
+    counter, and ``dir_flush`` summarizes + persists.
     """
 
     def __init__(self):
@@ -81,11 +82,11 @@ class MetricLogger:
         s = self._series[name]
         return np.asarray(s.steps), np.asarray(s.values)
 
-    def dir_flush(self, out_dir: str, log_pkl: bool = True, render: bool = True):
+    def dir_flush(self, out_dir: str, log_pkl: bool = True):
         """Summarize the unflushed tail of every metric.
 
-        Emits one log line of per-metric window means, optionally renders
-        curve images, and persists history.  Returns the summary strings.
+        Emits one log line of per-metric window means and persists history.
+        Returns the summary strings.
         """
         parts = []
         for name, series in self._series.items():
@@ -94,26 +95,10 @@ class MetricLogger:
                 continue
             parts.append(f"{name}: {np.mean(tail):.6g}")
             series.advance()
-            if render:
-                self._render(name, out_dir)
         log.info("iter %d\n%s", self._step, ", ".join(parts))
         if log_pkl:
             self._persist(out_dir)
         return parts
-
-    def _render(self, name: str, out_dir: str):
-        import matplotlib
-
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        steps, values = self.history(name)
-        order = np.argsort(steps, kind="stable")
-        plt.clf()
-        plt.plot(steps[order], values[order])
-        plt.xlabel("iteration")
-        plt.ylabel(name)
-        plt.savefig(os.path.join(out_dir, f"{name.replace(' ', '_')}.jpg"))
 
     def _persist(self, out_dir: str):
         # log.pkl keeps the {name: {step: value}} layout for plot tooling.

@@ -1,15 +1,15 @@
-"""Arithmetic-intensity scaling study (VERDICT r3 item 8): is the ~55% MFU
-ceiling of the flagship config a property of the WORKLOAD (reference batch 64,
-dim 128 — memory-bound) or of the framework?
+"""Arithmetic-intensity scaling study: is the flagship config's share of
+peak a property of the WORKLOAD (reference batch 64, dim 128) or of the
+framework?
 
 Benches the fused 1G+5D cycle at batch {64, 128, 256} (and optionally
-dim 256) and reports cycles/s, achieved TFLOP/s, %MXU peak, and — when the
-static-unroll cycle is compiled (--bytes) — achieved GB/s and %HBM peak.
-If MFU rises with batch (arithmetic intensity), the ceiling is the
-reference workload, not the framework.
+dim 256) and reports cycles/s, achieved TFLOP/s, % of the card's bf16
+peak, and — when the static-unroll cycle is compiled (--bytes) — achieved
+GB/s and % of its HBM peak (peaks from ``utils/profiling.PEAKS``).  If the
+share rises with batch, the ceiling is the reference workload.
 
-Run on the TPU:   python scripts/bench_scaling.py --out docs/perf/scaling_r4.json
-Validate on CPU:  python scripts/bench_scaling.py --tiny --cpu
+On the GPU:       python scripts/bench_scaling.py --out runs/scaling.json
+Rehearse on CPU:  JAX_PLATFORMS=cpu python scripts/bench_scaling.py --tiny
 """
 
 import argparse
@@ -22,8 +22,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-V5E_BF16_PEAK_TFLOPS = 197.0
-V5E_HBM_GBPS = 819.0
 
 
 def timed_rate(fn, n=30, windows=3):
@@ -38,7 +36,7 @@ def timed_rate(fn, n=30, windows=3):
     return float(np.median(rates))
 
 
-def bench_config(batch, dim, dtype, want_bytes):
+def bench_config(batch, dim, dtype, want_bytes, peak):
     import jax
     import jax.numpy as jnp
 
@@ -77,26 +75,14 @@ def bench_config(batch, dim, dtype, want_bytes):
     # times — see bench.py module docstring for why the rolled count is ~2x low)
     unrolled = jax.jit(lambda ts_, rng: tr._cycle(ts_, d_batches, g_labels, it, rng,
                                                   None, None, static_unroll=True))
-    flops = 0.0
+    from rcgan_tpu.utils.profiling import xla_cost
+
+    flops = float(xla_cost(unrolled, ts, jax.random.key(1), compiled=False)["flops"])
     bytes_acc = None
-    try:
-        c = unrolled.lower(ts, jax.random.key(1)).cost_analysis()
-        if isinstance(c, (list, tuple)):
-            c = c[0]
-        flops = float(c.get("flops", 0.0))
-    except Exception as e:  # noqa: BLE001
-        print(f"  (lowered unrolled count unavailable: {e})")
     if want_bytes:
-        try:
-            c = unrolled.lower(ts, jax.random.key(1)).compile().cost_analysis()
-            if isinstance(c, (list, tuple)):
-                c = c[0]
-            bytes_acc = float(c.get("bytes accessed", 0.0))
-            cf = float(c.get("flops", 0.0))
-            if cf > 0:
-                flops = cf  # post-optimization count when available
-        except Exception as e:  # noqa: BLE001
-            print(f"  (compiled unrolled bytes unavailable: {e})")
+        c = xla_cost(unrolled, ts, jax.random.key(1))
+        bytes_acc = float(c.get("bytes accessed", 0.0))
+        flops = float(c["flops"])  # post-optimization count
 
     row = {
         "batch": batch,
@@ -105,12 +91,12 @@ def bench_config(batch, dim, dtype, want_bytes):
         "ms_per_cycle": round(1e3 / rate, 2),
         "gflops_per_cycle": round(flops / 1e9, 1),
         "tflops_per_sec": round(rate * flops / 1e12, 2),
-        "pct_bf16_peak": round(100 * rate * flops / 1e12 / V5E_BF16_PEAK_TFLOPS, 1),
+        "pct_bf16_peak": 100 * rate * flops / 1e12 / peak["bf16_tflops"],
     }
     if bytes_acc:
         row["gbytes_per_cycle"] = round(bytes_acc / 1e9, 2)
         row["gbps"] = round(rate * bytes_acc / 1e9, 1)
-        row["pct_hbm_peak"] = round(100 * rate * bytes_acc / 1e9 / V5E_HBM_GBPS, 1)
+        row["pct_hbm_peak"] = 100 * rate * bytes_acc / 1e12 / peak["hbm_tbps"]
         row["arithmetic_intensity_flops_per_byte"] = round(flops / bytes_acc, 1)
     print(json.dumps(row))
     return row
@@ -118,8 +104,7 @@ def bench_config(batch, dim, dtype, want_bytes):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--tiny", action="store_true")
-    p.add_argument("--cpu", action="store_true")
+    p.add_argument("--tiny", action="store_true", help="tiny dims (CPU rehearsal)")
     p.add_argument("--bytes", action="store_true", default=True,
                    help="compile the static-unroll cycle for true bytes "
                         "(slower per config; default on)")
@@ -135,11 +120,14 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
     from rcgan_tpu.utils.compilation_cache import enable as enable_xla_cache
+    from rcgan_tpu.utils.profiling import device_info, peaks
 
     enable_xla_cache()
+    device = device_info()
+    print(f"device: {device}")
+    nan = float("nan")
+    peak = ({"bf16_tflops": nan, "hbm_tbps": nan} if args.tiny else peaks(device["kind"]))
 
     dtype = jnp.float32 if args.tiny else jnp.bfloat16
     if args.tiny:
@@ -164,7 +152,7 @@ def main():
 
     for b, d in [(b, base_dim) for b in batches] + [(args.dim_batch, d) for d in dims]:
         try:
-            rows.append(bench_config(b, d, dtype, args.bytes))
+            rows.append(bench_config(b, d, dtype, args.bytes, peak))
         except Exception as e:  # noqa: BLE001
             print(f"  (config batch={b} dim={d} failed: {type(e).__name__}: {e})")
             rows.append({"batch": b, "dim": d, "error": f"{type(e).__name__}: {e}"})

@@ -1,5 +1,5 @@
 """Render the accuracy-vs-alpha sweep figure (the shape of the paper's
-headline MNIST figure, ``/root/reference/README.md:48-58``) from the
+headline MNIST figure, the reference's ``README.md:48-58``) from the
 COMMITTED run archives under docs/runs/ — one line per method (rcgan,
 unbiased, biased), x = alpha, y = final (epoch-99) generated-label accuracy
 against the pinned classifier.

@@ -36,10 +36,10 @@ def test_metric_logger_flush(tmp_path):
     for i in range(5):
         m.plot("loss", 1.0 / (i + 1))
         m.tick()
-    prints = m.dir_flush(str(tmp_path), render=True)
+    prints = m.dir_flush(str(tmp_path))
     assert any("loss" in p for p in prints)
-    assert (tmp_path / "loss.jpg").exists()
     assert (tmp_path / "log.pkl").exists()
+    assert (tmp_path / "metrics.jsonl").exists()
     assert m.latest("loss") == 0.2
 
 
@@ -146,11 +146,11 @@ def test_metric_logger_plot_at_and_history(tmp_path):
     m = MetricLogger()
     m.plot_at("acc", 0.5, 10)
     m.plot_at("acc", 0.7, 30)
-    prints = m.dir_flush(str(tmp_path), render=False)
+    prints = m.dir_flush(str(tmp_path))
     assert prints == ["acc: 0.6"]
     # second flush only summarizes the new tail
     m.plot_at("acc", 0.9, 40)
-    assert m.dir_flush(str(tmp_path), render=False) == ["acc: 0.9"]
+    assert m.dir_flush(str(tmp_path)) == ["acc: 0.9"]
     steps, values = m.history("acc")
     assert list(steps) == [10, 30, 40]
     assert m.latest("acc") == 0.9
